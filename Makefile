@@ -4,7 +4,6 @@
 CC ?= cc
 CFLAGS ?= -O3 -march=native -shared -fPIC -pthread
 SRCS = csrc/ribbit_core.c csrc/ribbit_refine.c csrc/ribbit_align.c \
-       csrc/ribbit_events.c \
        csrc/ribbit_vote.c
 
 .PHONY: all native asan tsan ubsan oracle test bench clean
@@ -26,22 +25,22 @@ asan:
 	$(CC) -O1 -g -fsanitize=address -march=native -shared -fPIC -pthread \
 	    $(SRCS) -o build/ribbit_asan.so -lm
 	python -c "import hashlib,pathlib,shutil; \
-	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c','ribbit_events.c']; \
+	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c']; \
 	    h=hashlib.sha256(b''.join((pathlib.Path('csrc')/f).read_bytes() for f in files)).hexdigest()[:16]; \
 	    shutil.copy('build/ribbit_asan.so', f'build/ribbit_core_{h}.so')"
 
 # ThreadSanitizer build (same install scheme; LD_PRELOAD libtsan.so).
 # The threaded generation/refinement pools are TSAN-clean on all fixtures.
-# -mno-avx512f: GCC's tsan instrumentation miscompiles the decoder's
-# AVX-512 compare-mask path under concurrency (spurious transitions with
-# ZERO race reports; plain/ASan/UBSan/serial-tsan all agree) — TSan runs
-# exercise the same transition algorithm through the portable path.
+# -mno-avx512f: GCC's tsan instrumentation has miscompiled AVX-512
+# compare-mask loops under concurrency (wrong results with ZERO race
+# reports; plain/ASan/UBSan/serial-tsan all agreed) — TSan runs exercise
+# the same algorithms through the portable paths.
 tsan:
 	mkdir -p build
 	$(CC) -O1 -g -fsanitize=thread -march=native -mno-avx512f -shared \
 	    -fPIC -pthread $(SRCS) -o build/ribbit_tsan.so -lm
 	python -c "import hashlib,pathlib,shutil; \
-	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c','ribbit_events.c']; \
+	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c']; \
 	    h=hashlib.sha256(b''.join((pathlib.Path('csrc')/f).read_bytes() for f in files)).hexdigest()[:16]; \
 	    shutil.copy('build/ribbit_tsan.so', f'build/ribbit_core_{h}.so')"
 
@@ -52,7 +51,7 @@ ubsan:
 	$(CC) -O1 -g -fsanitize=undefined -fno-sanitize-recover=undefined \
 	    -march=native -shared -fPIC -pthread $(SRCS) -o build/ribbit_ubsan.so -lm
 	python -c "import hashlib,pathlib,shutil; \
-	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c','ribbit_events.c']; \
+	    files=['ribbit_core.c','ribbit_refine.c','ribbit_align.c','ribbit_vote.c']; \
 	    h=hashlib.sha256(b''.join((pathlib.Path('csrc')/f).read_bytes() for f in files)).hexdigest()[:16]; \
 	    shutil.copy('build/ribbit_ubsan.so', f'build/ribbit_core_{h}.so')"
 

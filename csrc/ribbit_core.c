@@ -13,7 +13,7 @@
  * Design: the O(NSHIFTS * L) bitmap work is streamed channel-by-channel into
  * COMPACT EVENTS (perfect runs, qualified-window runs); the sequential
  * scanner/lattice replay then costs O(events), not O(L).  The same event
- * arrays can be produced by the TPU scan kernel (ribbit_tpu/scan_tpu.py) and
+ * arrays can be produced by the device extractor (scan_events_tpu.py) and
  * injected, in which case generation here is skipped — the consumers are
  * identical.  Range popcount / longest-run queries (the lattices' retain
  * rules and refinement's guards) recompute bits on demand from the 2-bit
@@ -1234,7 +1234,11 @@ static void *gen_worker(void *arg) {
                         p = pl + T0;
                         i64 s = p;
                         while (s > 0 && PM(s - 1)) s--;   /* guard stops at T0 */
-                        i64 e = p + 6;
+                        /* a 6-run starting within 6 of T1 reaches T1 and
+                         * so crosses the tile: e must stop there for the
+                         * carry below (past T1 it would drop the run's
+                         * start, and the next tile would clip it to T0) */
+                        i64 e = p + 6 < T1 ? p + 6 : T1;
                         while (e < T1 && PM(e)) e++;
                         if (e == T1 && T1 < L && PM(T1)) {
                             perf_open[didx] = s;          /* crosses the tile */
@@ -3051,7 +3055,7 @@ RibbitCore *ribbit_core_create(const int8_t *code, const uint8_t *nmask,
     return c;
 }
 
-/* inject externally produced events (e.g. from the TPU scan kernel):
+/* inject externally produced events (e.g. from the device extractor):
  * flattened per-channel run arrays with offsets[nmotifs+1] */
 void ribbit_core_set_events(RibbitCore *c,
                             const i64 *pf_s, const i64 *pf_e, const i64 *pf_off,

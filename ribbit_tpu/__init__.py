@@ -1,10 +1,11 @@
-"""ribbit_tpu — a TPU-native tandem-repeat detection engine.
+"""ribbit_tpu — an accelerated tandem-repeat detection engine.
 
 Reimplements the capabilities of SowpatiLab/ribbit (shift-XOR periodicity
 scan, rank-lattice seed merging, pseudo-perfect-repeat alignment with banded
-affine-gap DP, BED emission) with a JAX/XLA/Pallas compute path designed for
-TPU: bulk fixed-shape array passes on device, compact event/candidate arrays
-on host, and mesh-sharded chunk parallelism for whole-genome scale.
+affine-gap DP, BED emission) with a native C host core and a JAX/XLA device
+path: bulk fixed-shape array passes on the device, compact event arrays
+replayed and refined on the host, and mesh-sharded chunk parallelism for
+whole-genome scale.
 """
 
 from .config import RibbitConfig

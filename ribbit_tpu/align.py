@@ -20,7 +20,7 @@ This module reproduces the same outputs with numpy:
 Scoring is the reference default: match 2, mismatch -2, gapO 3, gapE 1,
 N scores -2 against everything (ssw_cpp.cpp:27-52, 230-242).
 
-A batched TPU version of the forward scoring pass lives in align_pallas.py; this
+The native aligner (csrc/ribbit_align.c) runs this in production; this
 module is the semantics reference and the traceback engine.
 """
 

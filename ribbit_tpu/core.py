@@ -3,8 +3,8 @@
 A CoreSession owns a RibbitCore handle for one sequence: it runs the three
 scan phases + merge lattices in C and then serves the overlay range queries
 (popcount / longest-run) that seed refinement needs.  Events are either
-generated natively from the 2-bit code (host path) or injected from the TPU
-scan kernel (see scan_events_tpu.py).
+generated natively from the 2-bit code (host path) or injected from the device
+event extractor (see scan_events_tpu.py).
 """
 
 from __future__ import annotations
@@ -39,8 +39,7 @@ def _get_core_lib_locked():
         _tried = True
         return None
     so = _compile([_CSRC / "ribbit_core.c", _CSRC / "ribbit_refine.c",
-                   _CSRC / "ribbit_align.c", _CSRC / "ribbit_vote.c",
-                   _CSRC / "ribbit_events.c"])
+                   _CSRC / "ribbit_align.c", _CSRC / "ribbit_vote.c"])
     if so is None:
         _tried = True
         return None

@@ -1,6 +1,7 @@
 """Exact segment-wise event extraction: halo windows + event stitching.
 
-The device event extractors (scan_events_tpu / scan_events_pallas) produce,
+The event extractors (scan_events_tpu on the device, capture_runs_host on
+the host) produce,
 for one sequence, the three compact event streams the native core replays
 (perfect runs, threshold-7 window runs, threshold-6 overlay runs; see
 scan_events_tpu.py and csrc/ribbit_core.c).  Whole-contig extraction
@@ -51,6 +52,13 @@ from .config import RibbitConfig
 
 # minimum exact halo is ~512 (see module doc); 2048 adds margin for free
 HALO = 2048
+
+# core length of one extraction window (plus HALO on each side).  On an
+# H100 the XLA extractor's compiled peak at this window is ~8.7 GB, well
+# under JAX's default preallocation; nmotifs * padded window stays below
+# 2^31 so the kernel's flat indices fit int32.  Also the default chunk of
+# the multi-device and host chunked paths.
+SEG_SIZE = 8 << 20
 
 Stream = Tuple[np.ndarray, np.ndarray, np.ndarray]   # starts, ends, offsets
 
@@ -133,7 +141,7 @@ def capture_runs_host(code: np.ndarray, n_mask: np.ndarray,
 def scan_events_segmented(code: np.ndarray, n_mask: np.ndarray,
                           cfg: RibbitConfig,
                           extractor: Callable = None,
-                          seg_size: int = 8 << 20,
+                          seg_size: int = SEG_SIZE,
                           halo: int = HALO) -> Tuple[Stream, Stream, Stream]:
     """Whole-contig event streams via per-segment extraction + stitching.
 

@@ -65,33 +65,6 @@ def get_align_lib():
     return _lib
 
 
-_events_lib = None
-_events_tried = False
-
-
-def get_events_lib():
-    """Native flagword decoder entry from the combined library."""
-    global _events_lib, _events_tried
-    if _events_tried:
-        return _events_lib
-    _events_tried = True
-    if os.environ.get("RIBBIT_NO_NATIVE"):
-        return None
-    from .core import get_core_lib
-    base = get_core_lib()
-    if base is None:
-        return None
-    P32 = ctypes.POINTER(ctypes.c_int32)
-    P64 = ctypes.POINTER(ctypes.c_int64)
-    base.ribbit_decode_bitmaps.restype = ctypes.c_int64
-    base.ribbit_decode_bitmaps.argtypes = [
-        P32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, P64,
-        ctypes.c_int64, P32, P32, P32, P32, P32, P32, P64,
-    ]
-    _events_lib = base
-    return _events_lib
-
-
 _vote_lib = None
 _vote_tried = False
 

@@ -1,12 +1,11 @@
-"""Distributed contig processing over a device mesh (config 5 of
-BASELINE.md): the chunk axis of the sequence-parallel design IS the mesh
-axis.
+"""Distributed contig processing over a device mesh: the chunk axis of
+the sequence-parallel design IS the mesh axis.
 
 A long contig splits into halo-extended windows at raw offsets (no N-run
 split points needed), the windows pad to a common bucket and stack into
 [nchunks, Lp] arrays sharded over a 1-D mesh; every device runs the
 compact event-extraction kernel for its chunks via shard_map — the
-O(NSHIFTS * L) scan rides the chips, only sparse events come back.  The
+O(NSHIFTS * L) scan stays on the devices, only sparse events come back.  The
 per-chunk streams are clipped to their core intervals and stitched into
 the exact whole-contig streams (eventstitch), and the order-dependent
 scanner/lattice replay runs ONCE globally (O(events), cheap) before
@@ -16,8 +15,9 @@ Output is BYTE-IDENTICAL to the single-process whole-contig run — the
 old per-chunk replay's exposure to the reference's positional-index vote
 quirk (parse_anchored_shiftxor.cpp:441-526) is gone.  Event capacities
 autotune: the kernel reports true counts past the cap, so an overflowing
-attempt retries once with learned pow2 caps instead of raising.  Tested
-on the virtual 8-device CPU mesh against the single-process path.
+attempt retries once with learned pow2 caps; a second overflow raises.
+Tested on virtual CPU meshes of 1, 2, 4 and 8 devices against the
+single-process path.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from jax.sharding import PartitionSpec as P
 
 from ..config import RibbitConfig
 from ..encode import encode
-from ..eventstitch import HALO, clip_stream, merge_clipped, segment_bounds
-from ..scan_events_tpu import _event_kernel, _next_cap
+from ..eventstitch import (HALO, SEG_SIZE, clip_stream, merge_clipped,
+                           segment_bounds)
+from ..scan_events_tpu import _event_kernel, _next_cap, default_caps
 from .sharded_scan import make_mesh
 
 # learned event capacities per padded window length (shared across contigs;
@@ -68,12 +69,10 @@ def _sharded_extract(mesh, cfg: RibbitConfig, codes, nmasks, lens, Lp):
     """shard_map the event kernel over the chunk axis; autotune caps by
     retrying with learned pow2 capacities when a chunk overflows."""
     axis = mesh.axis_names[0]
-    caps = _learned_caps.get(Lp, (max(Lp // 8, 1 << 14),
-                                  max(Lp // 2, 1 << 14),
-                                  max(3 * Lp, 1 << 15)))
+    caps = _learned_caps.get(Lp, default_caps(Lp))
     codes_d, nmasks_d, lens_d = (jnp.asarray(codes), jnp.asarray(nmasks),
                                  jnp.asarray(lens))
-    for _attempt in range(4):
+    for _attempt in range(2):
         cap_p, cap_q7, cap_q6 = caps
 
         def one_chunk(c, n, ln):
@@ -129,7 +128,7 @@ def _chunk_streams(groups, i: int, nm: int):
 
 def distributed_process_contig(sequence_id: str, sequence: str,
                                cfg: RibbitConfig,
-                               chunk_size: int = 8 << 20,
+                               chunk_size: int = SEG_SIZE,
                                n_devices: Optional[int] = None,
                                workers: Optional[int] = None) -> List[str]:
     """Process one contig: device-sharded scan + ONE exact global replay."""

@@ -7,7 +7,7 @@ chunk windows shard over a GLOBAL 1-D mesh spanning all processes'
 devices, each process's chips run the compact event-extraction kernel for
 the chunk rows they own (the O(nshifts * L) scan never leaves the
 devices), the clipped per-chunk event fragments are exchanged with a
-cross-process allgather (rides ICI within a slice, DCN across hosts),
+cross-process allgather (NVLink within a host, the network across hosts),
 every process stitches the SAME exact whole-contig streams and replays
 the order-dependent scanner/lattice core once (O(events), cheap,
 redundant by design), and refinement fans out across processes by seed
@@ -34,6 +34,7 @@ import numpy as np
 
 from ..config import RibbitConfig
 from ..encode import encode
+from ..eventstitch import SEG_SIZE
 
 
 def ensure_initialized(coordinator: str, num_processes: int,
@@ -93,8 +94,8 @@ def _with_deadline(fn, *args, what: str = "collective"):
 
 
 # cumulative allgather payload bytes this process has seen (comm-volume
-# accounting for the multi-host efficiency model, BASELINE.md); the
-# stacked allgather moves nproc * payload bytes per rank
+# accounting, printed with --timing); the stacked allgather moves
+# nproc * payload bytes per rank
 COMM_BYTES = 0
 
 
@@ -139,7 +140,7 @@ def _unpack_clipped(blob: bytes):
 
 def multihost_process_contig(sequence_id: str, sequence: str,
                              cfg: RibbitConfig,
-                             chunk_size: int = 8 << 20,
+                             chunk_size: int = SEG_SIZE,
                              workers: Optional[int] = None,
                              timing: bool = False) -> List[str]:
     """Process one contig cooperatively across all initialized processes.

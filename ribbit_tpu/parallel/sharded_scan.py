@@ -4,7 +4,7 @@ This is the multi-chip analogue of the reference's single pass over a contig
 (fasta_utils.cpp:120-170): the genome is chunked with halo overlap >= the
 largest detectable repeat span, chunks are sharded over the mesh, every chip
 scans its chunks for all shift channels, and per-chunk summaries (candidate
-window counts) are psum-reduced across the mesh — the collective rides ICI.
+window counts) are psum-reduced across the mesh.
 Host-side seed extraction consumes the per-chunk compact outputs.
 """
 
@@ -51,7 +51,7 @@ def _chunk_scan(code: jax.Array, n_mask: jax.Array, *,
 
 def sharded_scan_step(mesh: Mesh, cfg: RibbitConfig):
     """Builds the jitted multi-chip step: chunks sharded over the mesh axis,
-    per-chunk scan on each chip, global candidate-count psum over ICI."""
+    per-chunk scan on each device, global candidate-count psum."""
     axis = mesh.axis_names[0]
 
     @functools.partial(

@@ -1,4 +1,4 @@
-"""TPU event extraction: the device-side producer for the native core.
+"""Device event extraction (plain XLA): the producer for the native core.
 
 Instead of shipping full [NSHIFTS, L] bitmaps to the host (scan_tpu.py), this
 kernel computes the scan AND compacts it into the sparse event streams the
@@ -12,11 +12,11 @@ C consumers (csrc/ribbit_core.c) replay:
     threshold 6 over the anchored overlay (anchored scan)
 
 Everything is fixed-shape prefix/suffix scans + one nonzero compaction per
-stream; events transfer as ~int32-sized arrays (MBs) instead of the
-O(NSHIFTS*L) bitmaps (GBs at genome scale).  Compaction capacities
-autotune: the kernel reports true counts even past the cap, so overflow
-retries with exactly-sized caps and the learned sizes persist per length
-bucket (see scan_events).
+stream, all int32/bool (results are exact on any backend); events transfer
+as ~int32-sized arrays (MBs) instead of the O(NSHIFTS*L) bitmaps (GBs at
+genome scale).  Compaction capacities autotune: the kernel reports true
+counts even past the cap, so an overflow retries once with exactly-sized
+caps and the learned sizes persist per length bucket (see scan_events).
 """
 
 from __future__ import annotations
@@ -138,8 +138,15 @@ def _to_host(group, nmotifs):
 
 # learned event capacities per padded length: an overflow on one sequence
 # trains the caps for every later sequence of that bucket (repeat-dense
-# genomes stay on the device path instead of falling back to the host)
+# genomes pay the retry once)
 _learned_caps: dict = {}
+
+
+def default_caps(Lp: int):
+    """Starting (perfect, q7, q6) compaction capacities for padded length
+    Lp, before any overflow has taught larger ones."""
+    return (max(Lp // 8, 1 << 14), max(Lp // 2, 1 << 14),
+            max(3 * Lp, 1 << 15))
 
 
 def _next_cap(count: int) -> int:
@@ -154,9 +161,9 @@ def scan_events(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig):
 
     Capacities autotune: the kernel returns true event counts even when
     they exceed the compaction capacity, so an overflowing attempt is
-    retried with exactly-sized (pow2-rounded) caps and the learned sizes
-    persist for subsequent sequences.  Raises OverflowError only if growth
-    fails to converge (caller falls back to host generation)."""
+    retried once with exactly-sized (pow2-rounded) caps and the learned
+    sizes persist for subsequent sequences.  Raises OverflowError if the
+    retry still overflows."""
     L = code.shape[0]
     Lp = _pad_to_bucket(L)
     code_p = np.zeros(Lp, dtype=np.int8)
@@ -164,12 +171,10 @@ def scan_events(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig):
     n_p = np.ones(Lp, dtype=bool)
     n_p[:L] = n_mask
 
-    caps = _learned_caps.get(Lp, (max(Lp // 8, 1 << 14),
-                                  max(Lp // 2, 1 << 14),
-                                  max(3 * Lp, 1 << 15)))
+    caps = _learned_caps.get(Lp, default_caps(Lp))
 
     code_d, n_d = jnp.asarray(code_p), jnp.asarray(n_p)
-    for _attempt in range(4):
+    for _attempt in range(2):
         perf, q7, q6 = _event_kernel(
             code_d, n_d, jnp.int32(L),
             min_shift=cfg.min_shift, nshifts=cfg.nshifts,
@@ -177,10 +182,10 @@ def scan_events(code: np.ndarray, n_mask: np.ndarray, cfg: RibbitConfig):
             cap_p=caps[0], cap_q7=caps[1], cap_q6=caps[2])
         counts = (int(perf[3]), int(q7[3]), int(q6[3]))
         if all(c <= cap for c, cap in zip(counts, caps)):
-            break
+            nm = cfg.nmotifs
+            return _to_host(perf, nm), _to_host(q7, nm), _to_host(q6, nm)
         caps = tuple(cap if c <= cap else _next_cap(c)
                      for c, cap in zip(counts, caps))
         _learned_caps[Lp] = caps
-
-    nm = cfg.nmotifs
-    return _to_host(perf, nm), _to_host(q7, nm), _to_host(q6, nm)
+    raise OverflowError(f"event capacity autotune did not converge: "
+                        f"counts {counts} > caps {caps}")

@@ -14,8 +14,8 @@ order is absorbed here).  Tail rule: for p + shift >= L the reference compares
 against shifted-in zero bits, so eq[p] = (code[p] == 0) there; N bases also
 encode as 0 in the bit-planes.
 
-This is the semantics-reference implementation; the TPU backend
-(ribbit_tpu/scan_tpu.py) computes the same arrays on device.
+This is the semantics-reference implementation; the device backend
+(ribbit_tpu/scan_tpu.py) computes the same arrays through XLA.
 """
 
 from __future__ import annotations

@@ -8,14 +8,14 @@ overlay, and the qualified-window masks for the substitution (>=7 bits per
 :120-161, parse_anchored_shiftxor.cpp:20-56, parse_substitute_shiftxor.cpp
 :460-475.
 
-TPU mapping: everything is fixed-shape elementwise / gather / prefix-scan
-work over a [NSHIFTS, L] lattice — XLA fuses the compare+mask chains and the
-(reverse) cumulative scans onto the VPU; there is no data-dependent control
+Device mapping: everything is fixed-shape elementwise / gather / prefix-scan
+work over a [NSHIFTS, L] lattice — XLA fuses the compare+mask chains and
+lowers the (reverse) cumulative scans; there is no data-dependent control
 flow.  Sequences are padded to LANE-multiple buckets so compilations are
 cached per bucket, with the true length threaded as a traced scalar (padding
 behaves as N).  Run/interval compaction for the host-side scanners lives in
 scan_events_tpu.py; this module's full-bitmap outputs back the parity tests
-against scan_host and the python-engine tpu backend.
+against scan_host and the python engine's device backend.
 """
 
 from __future__ import annotations

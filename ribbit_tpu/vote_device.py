@@ -1,21 +1,20 @@
 """Device-batched diagonal voting for large-motif inference.
 
-Brute-force TPU formulation of `mostFrequentLongerMotif`
+Brute-force device formulation of `mostFrequentLongerMotif`
 (/root/reference/parse_seed.cpp:153-256; validated Python spec:
 refine.py:_most_frequent_longer_motif_scalar, host AVX-512 production
 implementation: csrc/ribbit_vote.c:ribbit_vote_longer).
 
 The host voter's greedy +-2-jitter walk is a per-row sequential chain of
-data-dependent gathers — the access pattern Mosaic forbids on the VPU
-(dynamic lane indexing into VMEM).  This module changes the decomposition
-instead of fighting the gather:
+data-dependent gathers, a poor fit for wide vector hardware.  This module
+changes the decomposition instead of fighting the gather:
 
   1. ALL match counts the walk could ever query are precomputed as one
      dense table per run,  C[row, cursor] = sum_{i<m} eq(code[row+i],
      code[cursor+i]) & !n[cursor+i] & [cursor+i < seed_end],  via a
      one-hot matmul: A[row, (i,base)] x B[cursor, (i,base)] contracted
-     over 4*m — an MXU-shaped [R, 4m] x [B, 4m]^T product (exact: 0/1
-     bf16 operands, f32 accumulation).  The b-side one-hot absorbs the
+     over 4*m — a [R, 4m] x [B, 4m]^T matrix product (exact: 0/1 bf16
+     operands, f32 accumulation).  The b-side one-hot absorbs the
      n-mask and every clamp of the scalar spec:
        - downstream lim = min(m, seed_end-base, L-base, L-row) == zeroing
          b-side one-hots at positions >= min(seed_end, L) and a-side
@@ -39,24 +38,17 @@ instead of fighting the gather:
 
 Runs batch by (ssl, m) pow2 buckets; each bucket is one jit.  Exactness
 is differential-tested against the scalar spec and the native voter
-(tests/test_vote_device.py); throughput vs the AVX-512 host voter is
-measured by tools/voter_device_bench.py on the real chromosome-fixture
-workload (RIBBIT_VOTE_DUMP).
+(tests/test_vote_device.py); tools/voter_device_bench.py times it
+against the AVX-512 host voter on the chromosome-fixture workload
+(RIBBIT_VOTE_DUMP).
 
-MEASURED AND REJECTED for production (round 5, VERDICT #3): on the real
-45,048-run / 21.4 Gc chromosome workload the device voter is exact
-(0/1000 sampled mismatches, 1 band-overflow fallback) but ~20-50x slower
-than the host voter (extrapolated ~57-163 s on-chip vs 3.15 s on 4 AVX-512
-threads; per-bucket 0.2 ms/run at ssl<=512 up to 34 ms/run at ssl~8192,
-vs host 3 us - 2.4 ms/run).  The loss is structural, not tuning: the
-median vote run costs the host ~6 us thanks to the early-abort greedy
-walk, far below any device dispatch+table-build granularity, and the big
-runs pay O(ssl^2) table materialization + ~2*ssl/m sequential banded-walk
-iterations against the host's early-aborted O(visited * m/64) AVX-512
-popcounts.  The module stays as the reference device formulation (and the
-walk/table machinery is reusable), but refine_batched keeps the host
-voter.  See NOTES_ROUND5.md and tools/voter_device_bench.py output in
-EVIDENCE.md.
+Not on the production path: refinement uses the host voter.  Structural
+reasons: the median vote run costs the host microseconds thanks to the
+early-abort greedy walk, below any device dispatch + table-build
+granularity, and the big runs pay O(ssl^2) table materialization plus
+~2*ssl/m sequential banded-walk iterations against the host's
+early-aborted O(visited * m/64) popcounts.  The module stays as the
+reference device formulation.
 """
 
 from __future__ import annotations

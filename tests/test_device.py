@@ -1,8 +1,10 @@
 """Device-path tests on the virtual 8-device CPU mesh.
 
 Covers: the full-bitmap device scan backend vs the host reference, the
-compact event-extraction kernel end-to-end (BED parity through the native
-core), the driver entry points, and the sharded multi-chip scan step.
+compact event-extraction kernel (streams equal to the native host
+extractor, BED parity through the native core), the overlap pipeline and
+its error behaviour, the driver entry points, and the sharded multi-device
+scan step.  Tests marked `gpu` repeat the exactness checks on the card.
 """
 
 import numpy as np
@@ -34,17 +36,54 @@ def test_scan_arrays_device_vs_host(cpu_jax):
     assert np.array_equal(q6_h, q6_t)
 
 
-def test_event_kernel_bed_parity(cpu_jax, golden_dir):
+@pytest.mark.parametrize("golden", ["g1", "g2", "g3"])
+def test_event_kernel_bed_parity(cpu_jax, golden_dir, golden):
     """Device event extraction -> native core -> BED must equal the oracle."""
     from ribbit_tpu.fasta import read_fasta
     from ribbit_tpu.pipeline import process_sequence
 
     cfg = RibbitConfig.create()
     lines = []
-    for sid, seq in read_fasta(str(golden_dir / "g3.fa")):
-        process_sequence(sid, seq, cfg, out=lines, scan_backend="tpu")
-    expected = (golden_dir / "g3.oracle.bed").read_text().splitlines()
+    for sid, seq in read_fasta(str(golden_dir / f"{golden}.fa")):
+        process_sequence(sid, seq, cfg, out=lines, scan_backend="device")
+    expected = (golden_dir / f"{golden}.oracle.bed").read_text().splitlines()
     assert lines == expected
+
+
+def _fixture(kind: str, cfg: RibbitConfig) -> str:
+    """Small seeded sequences: repeat-dense (short spacers) or N-gapped
+    (frequent N blocks plus one long N run)."""
+    from ribbit_tpu.sim import simulate
+    kw = dict(min_motif=cfg.min_motif, max_motif=cfg.max_motif, max_units=30)
+    if kind == "dense":
+        return simulate(num_loci=10, seed=11, buffer_range=(20, 120),
+                        **kw).sequence
+    a = simulate(num_loci=4, seed=12, n_block_rate=0.6, **kw).sequence
+    b = simulate(num_loci=4, seed=13, n_block_rate=0.6, **kw).sequence
+    return a + "N" * 700 + b
+
+
+def _assert_streams_equal(got, want):
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert np.array_equal(np.asarray(a, dtype=np.int64),
+                                  np.asarray(b, dtype=np.int64))
+
+
+@pytest.mark.parametrize("kind", ["dense", "ngapped"])
+@pytest.mark.parametrize("motifs", [(2, 100), (2, 6), (10, 30)])
+def test_xla_extractor_matches_host(cpu_jax, motifs, kind):
+    """The XLA extractor's three event streams are bit-identical to the
+    native host extractor's (capture_runs_host) for every motif setting."""
+    from ribbit_tpu.encode import encode
+    from ribbit_tpu.eventstitch import capture_runs_host
+    from ribbit_tpu.scan_events_tpu import scan_events
+
+    cfg = RibbitConfig.create(min_motif=motifs[0], max_motif=motifs[1])
+    code, n_mask = encode(_fixture(kind, cfg))
+    dev = scan_events(code, n_mask, cfg)
+    assert sum(s.shape[0] for s, _e, _o in dev) > 0
+    _assert_streams_equal(dev, capture_runs_host(code, n_mask, cfg))
 
 
 def test_event_capacity_autotune(cpu_jax):
@@ -122,7 +161,7 @@ def test_sharded_scan_matches_single_device(cpu_jax):
 
 
 def test_multi_contig_tpu_backend_overlap_parity(cpu_jax, tmp_path):
-    """Multi-contig --backend tpu (device-producer / host-consumer
+    """Multi-contig --backend device (device-producer / host-consumer
     pipeline) must match the host path byte-for-byte in file order,
     including an empty record."""
     from ribbit_tpu.pipeline import process_fasta
@@ -138,8 +177,8 @@ def test_multi_contig_tpu_backend_overlap_parity(cpu_jax, tmp_path):
                 fh.write(">empty\n\n")
     cfg = RibbitConfig.create()
     host = process_fasta(str(fa), cfg, scan_backend="host")
-    tpu = process_fasta(str(fa), cfg, scan_backend="tpu")
-    assert tpu == host
+    dev = process_fasta(str(fa), cfg, scan_backend="device")
+    assert dev == host
 
 
 def test_tpu_overlap_prefetch_is_bounded(cpu_jax, tmp_path, monkeypatch):
@@ -171,8 +210,8 @@ def test_tpu_overlap_prefetch_is_bounded(cpu_jax, tmp_path, monkeypatch):
     from ribbit_tpu.fasta import read_fasta
     records = list(read_fasta(str(fa)))
     todo = [(i, sid, seq) for i, (sid, seq) in enumerate(records)]
-    for _sid, _n, _lines in pl._fasta_records_tpu_overlap(records, todo,
-                                                          cfg):
+    for _sid, _n, _lines in pl._fasta_records_device_overlap(records, todo,
+                                                             cfg):
         state["consumed"] += 1
 
     assert state["started"] == 8
@@ -182,7 +221,7 @@ def test_tpu_overlap_prefetch_is_bounded(cpu_jax, tmp_path, monkeypatch):
 
 def test_tpu_overlap_overcap_contig_falls_back(cpu_jax, tmp_path,
                                                monkeypatch):
-    """A contig past the native i32 cap inside a multi-contig tpu run must
+    """A contig past the native i32 cap inside a multi-contig device run must
     route through process_sequence's auto-chunk path, not crash."""
     import ribbit_tpu.core as core_mod
     import ribbit_tpu.pipeline as pl
@@ -204,17 +243,18 @@ def test_tpu_overlap_overcap_contig_falls_back(cpu_jax, tmp_path,
     cap = max(len(s0), len(s1))
     monkeypatch.setattr(core_mod, "MAX_CONTIG", cap)
     monkeypatch.setattr(pl, "MAX_CONTIG", cap, raising=False)
-    tpu = pl.process_fasta(str(fa), cfg, scan_backend="tpu")
-    assert tpu == host
+    dev = pl.process_fasta(str(fa), cfg, scan_backend="device")
+    assert dev == host
 
 
-def test_tpu_overlap_autotune_failure_falls_back(cpu_jax, tmp_path,
-                                                 monkeypatch):
-    """An event-capacity autotune failure on one contig must fall back to
-    host generation for that contig only (byte parity preserved)."""
+@pytest.mark.parametrize("route", ["process_sequence", "overlap"])
+def test_device_extraction_error_propagates(cpu_jax, tmp_path, monkeypatch,
+                                            route):
+    """A device extraction error ends the run: it propagates out of both
+    process_sequence and the multi-contig overlap path, with no host
+    fallback."""
     import ribbit_tpu.pipeline as pl
     from ribbit_tpu import eventstitch
-    from ribbit_tpu.config import RibbitConfig
     from ribbit_tpu.sim import simulate
 
     sims = [simulate(num_loci=3, seed=80 + i, name=f"c{i}")
@@ -223,9 +263,6 @@ def test_tpu_overlap_autotune_failure_falls_back(cpu_jax, tmp_path,
     with open(fa, "w") as fh:
         for i, s in enumerate(sims):
             fh.write(f">c{i}\n{s.sequence}\n")
-
-    cfg = RibbitConfig.create()
-    host = pl.process_fasta(str(fa), cfg, scan_backend="host")
 
     real = eventstitch.scan_events_segmented
     state = {"n": 0}
@@ -237,5 +274,54 @@ def test_tpu_overlap_autotune_failure_falls_back(cpu_jax, tmp_path,
         return real(*a, **kw)
 
     monkeypatch.setattr(eventstitch, "scan_events_segmented", flaky)
-    tpu = pl.process_fasta(str(fa), cfg, scan_backend="tpu")
-    assert tpu == host
+    cfg = RibbitConfig.create()
+    with pytest.raises(OverflowError, match="synthetic"):
+        if route == "process_sequence":
+            for s in sims:
+                pl.process_sequence("c", s.sequence, cfg,
+                                    scan_backend="device")
+        else:
+            pl.process_fasta(str(fa), cfg, scan_backend="device")
+    assert state["n"] >= 2          # the overlap path prefetches ahead
+
+
+@pytest.mark.gpu
+def test_xla_extractor_matches_host_on_gpu(gpu):
+    """On the card: the XLA extractor at a full extraction window equals
+    the native host extractor exactly."""
+    from ribbit_tpu.encode import encode
+    from ribbit_tpu.eventstitch import HALO, SEG_SIZE, capture_runs_host
+    from ribbit_tpu.scan_events_tpu import scan_events
+    from ribbit_tpu.sim import simulate
+
+    cfg = RibbitConfig.create()
+    L = SEG_SIZE + 2 * HALO
+    seq = simulate(num_loci=L // 1500 + 1, seed=5, n_block_rate=0.1,
+                   buffer_range=(200, 1500)).sequence[:L]
+    code, n_mask = encode(seq)
+    _assert_streams_equal(scan_events(code, n_mask, cfg),
+                          capture_runs_host(code, n_mask, cfg))
+
+
+@pytest.mark.parametrize("back", [1, 3, 5, 6])
+def test_perfect_run_crossing_generation_tile(cpu_jax, back):
+    """A perfect run starting within 6 bp before a host generation tile
+    boundary (64 Kbp) keeps its true start in the host extractor, as in
+    the XLA extractor."""
+    from ribbit_tpu.encode import encode
+    from ribbit_tpu.eventstitch import capture_runs_host
+    from ribbit_tpu.scan_events_tpu import scan_events
+
+    cfg = RibbitConfig.create()
+    rng = np.random.default_rng(back)
+    seq = list(rng.choice(list("ACGT"), 1 << 17))
+    motif = "ACGTTGCAAGT"                      # m = 11
+    s = (1 << 16) - back
+    seq[s:s + 4 * len(motif)] = motif * 4
+    seq[s - 1] = "A"                           # != motif[-1]: run starts at s
+    code, n_mask = encode("".join(seq))
+    host = capture_runs_host(code, n_mask, cfg, nthreads=1)
+    starts, _ends, off = host[0]
+    ch = len(motif) - cfg.min_motif
+    assert s in set(np.asarray(starts[off[ch]:off[ch + 1]]).tolist())
+    _assert_streams_equal(scan_events(code, n_mask, cfg), host)

@@ -2,6 +2,8 @@
 device-sharded event extraction + host-exact seed core must reproduce the
 single-process whole-contig output."""
 
+import pytest
+
 from ribbit_tpu.config import RibbitConfig
 from ribbit_tpu.sim import simulate
 
@@ -58,3 +60,28 @@ def test_distributed_cap_overflow_retries(cpu_jax, monkeypatch):
     # the used bucket's tiny caps must have been grown by the retry loop
     assert any(c > 32 for caps in dist_mod._learned_caps.values()
                for c in caps)
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_distributed_device_counts_match_host(cpu_jax, monkeypatch, ndev):
+    """The multi-device path equals the host path at 1, 2 and 4 devices,
+    and the extraction's shards sit on that many distinct devices."""
+    import ribbit_tpu.parallel.distributed as dist_mod
+    from ribbit_tpu.pipeline import process_sequence
+
+    seen = []
+    real = dist_mod._sharded_extract
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen.append({sh.device for sh in out[0][0].addressable_shards})
+        return out
+
+    monkeypatch.setattr(dist_mod, "_sharded_extract", spy)
+    genome = simulate(num_loci=10, seed=90, name="nd").sequence
+    cfg = RibbitConfig.create()
+    whole = process_sequence("chr", genome, cfg)
+    dist = dist_mod.distributed_process_contig(
+        "chr", genome, cfg, chunk_size=len(genome) // 5, n_devices=ndev)
+    assert dist == whole
+    assert len(seen) == 1 and len(seen[0]) == ndev

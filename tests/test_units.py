@@ -251,7 +251,7 @@ def test_makefile_sources_match_core_compile_list():
     """The sanitizer targets install their instrumented .so under the
     SAME content hash native.py computes; a csrc file added to core.py's
     _compile list but not the Makefile silently breaks make asan/tsan/
-    ubsan (happened with ribbit_events.c)."""
+    ubsan."""
     import pathlib
     import re
 

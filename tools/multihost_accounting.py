@@ -1,4 +1,4 @@
-"""Multi-host efficiency accounting (VERDICT r4 #5).
+"""Multi-host efficiency accounting.
 
 Produces the per-rank work/comm table and the projected scaling
 efficiency for the cooperative single-contig multi-host mode
@@ -6,8 +6,8 @@ efficiency for the cooperative single-contig multi-host mode
 
   scan_s     threaded event capture (parallelizable, /N across ranks)
   replay_s   ONE exact global lattice replay — REDUNDANT on every rank
-             (the byte-exactness design; chunk-split replay was measured
-             and rejected, NOTES_ROUND6.md), so it does NOT shrink with N
+             (the byte-exactness design; chunk-split replay is not exact,
+             see ARCHITECTURE.md), so it does NOT shrink with N
   refine_s   per-seed refinement (parallelizable, /N)
   comm_MB    allgathered payload per contig: 24 B/event fragment + output
              lines; the stacked allgather moves N * payload on the wire
@@ -83,7 +83,8 @@ def measure_terms(mb: float) -> dict:
 
 def projection(t: dict, ranks=(1, 2, 4, 8), bw_gbps: float = 12.5) -> list:
     """Efficiency table; bw_gbps is the per-host interconnect budget
-    (DCN-class default; ICI-class links make comm fully negligible)."""
+    (a 100 Gb/s network by default; NVLink within a host makes comm
+    negligible)."""
     comm_mb = t["event_comm_mb"] + t["output_comm_mb"]
     t1 = t["scan_s"] + t["replay_s"] + t["refine_s"]
     rows = []

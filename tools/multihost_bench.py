@@ -5,11 +5,13 @@ with N processes (each process an OS process with its own jax.distributed
 client), times both, and reports scaling efficiency t1 / (N * tN).
 
 On this CPU simulation the processes share cores, so the printed number
-measures orchestration overhead, not hardware scaling; on real multi-host
-TPU (one process per host, JAX_PLATFORMS unset) the same command measures
-the SURVEY §5 target (>= 80% at 2 hosts).
+measures orchestration overhead, not hardware scaling.  With
+RIBBIT_MH_BENCH_REAL=1 the processes keep JAX's own platform and each is
+bound to its own GPU (CUDA_VISIBLE_DEVICES=<process id>): a JAX process
+reserves most of every card it can see, so unbound processes on one host
+would fail for want of memory.  That mode needs one card per process.
 
-    python tools/multihost_bench.py [--processes 2] [--loci 60] [--mb 4]
+    python tools/multihost_bench.py [--processes 2] [--loci 60]
 """
 
 import argparse
@@ -18,6 +20,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,10 +33,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _env(devices: int) -> dict:
+def _env(devices: int, pid: int) -> dict:
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    if os.environ.get("RIBBIT_MH_BENCH_REAL") != "1":   # CPU simulation
+    if os.environ.get("RIBBIT_MH_BENCH_REAL") == "1":
+        env["CUDA_VISIBLE_DEVICES"] = str(pid)        # one card per process
+    else:                                             # CPU simulation
         env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     env["PYTHONPATH"] = REPO
@@ -51,7 +56,7 @@ def _run(nproc: int, fa: str, out: str, chunk: int, devices: int) -> float:
                "--chunk-size", str(chunk), "--timing"]
         if pid == 0:
             cmd += ["-o", out]
-        procs.append(subprocess.Popen(cmd, env=_env(devices),
+        procs.append(subprocess.Popen(cmd, env=_env(devices, pid),
                                       stdout=subprocess.DEVNULL,
                                       stderr=subprocess.PIPE))
     for p in procs:
@@ -80,20 +85,22 @@ def main() -> None:
                               seed=900 + ci, name=f"b{ci}").sequence)
         parts.append("N" * 800)
     genome = "".join(parts)
-    fa = "/tmp/ribbit_mh_bench.fa"
+    tmp = tempfile.gettempdir()
+    fa = os.path.join(tmp, "ribbit_mh_bench.fa")
     with open(fa, "w") as fh:
         fh.write(">chr\n")
         for i in range(0, len(genome), 80):
             fh.write(genome[i:i + 80] + "\n")
     chunk = len(genome) // (4 * args.processes)
 
-    t1 = _run(1, fa, "/tmp/ribbit_mh_b1.bed", chunk, args.devices)
-    tn = _run(args.processes, fa, "/tmp/ribbit_mh_bn.bed", chunk,
-              args.devices)
+    b1_path = os.path.join(tmp, "ribbit_mh_b1.bed")
+    bn_path = os.path.join(tmp, "ribbit_mh_bn.bed")
+    t1 = _run(1, fa, b1_path, chunk, args.devices)
+    tn = _run(args.processes, fa, bn_path, chunk, args.devices)
 
-    with open("/tmp/ribbit_mh_b1.bed", "rb") as fh:
+    with open(b1_path, "rb") as fh:
         b1 = fh.read()
-    with open("/tmp/ribbit_mh_bn.bed", "rb") as fh:
+    with open(bn_path, "rb") as fh:
         bn = fh.read()
     if b1 != bn:
         raise SystemExit("PARITY FAIL: multi-process output differs")

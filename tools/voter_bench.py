@@ -1,15 +1,12 @@
-"""Diagonal-voter placement measurement (VERDICT round-1 item 5).
+"""Diagonal-voter placement measurement.
 
 The large-motif refiner's diagonal voter (mostFrequentLongerMotif,
 parse_seed.cpp:153-256) walks candidate rows in greedy ±2 bp jitter steps —
-per-row data-dependent gathers.  On the TPU VPU that access pattern needs a
-per-lane gather per greedy step (dynamic lane indexing into VMEM, which this
-Mosaic toolchain rejects outright; an SMEM-resident rewrite serializes the
-lanes), so the voter stays on the host.  This harness puts numbers behind
-that call: it times, on identical real seed workloads,
+per-row data-dependent gathers, so the voter stays on the host.  This
+harness puts numbers behind that call: it times, on identical real seed
+workloads,
 
-  - the AVX-512BW C voter (csrc/ribbit_vote.c) used by both the native and
-    the device-batched refinement paths, and
+  - the AVX-512BW C voter (csrc/ribbit_vote.c) used by refinement, and
   - the vectorized numpy spec (refine.py fallback),
 
 and reports the voter's share of total refinement wall time.
